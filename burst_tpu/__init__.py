@@ -1,30 +1,32 @@
-"""burst_tpu: TPU-native optimal short-read DNA aligner.
+"""burst_tpu: optimal short-read DNA aligner on an accelerator.
 
 A from-scratch re-design of the capabilities of knights-lab/BURST for
-TPU hardware: bit-parallel Myers scan kernels over a sharded reference
-database, exact tie-aware rescoring, and BURST-compatible databases,
-modes, and blast6 output.
+accelerator hardware: bit-parallel Myers scan kernels over a sharded
+reference database, exact tie-aware rescoring, and BURST-compatible
+databases, modes, and blast6 output.
 """
 import os
 
 __version__ = "0.1.0"
 
-
-def _enable_compile_cache():
-    """Persistent XLA compilation cache: kernel shapes are canonical, so
-    compiles amortize across processes (important under remote-compile
-    TPU backends where a single compile costs seconds)."""
-    if os.environ.get("BURST_TPU_NO_CACHE"):
-        return
-    try:
-        import jax
-        cache = os.environ.get("BURST_TPU_CACHE_DIR",
-                               os.path.expanduser("~/.cache/burst_tpu_xla"))
-        os.makedirs(cache, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass
+# The compile cache's directory when JAX_COMPILATION_CACHE_DIR is unset:
+# a fixed path inside the checkout (the path is part of the cache key).
+REPO_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    ".jax_cache")
 
 
-_enable_compile_cache()
+def enable_compile_cache() -> str:
+    """Persist compiled XLA programs across processes; returns the
+    directory in use. Kernel shapes are canonical, so one-shot CLI runs
+    and serving processes reuse each other's compiles. When
+    JAX_COMPILATION_CACHE_DIR is set, JAX reads it and no directory is
+    set here."""
+    import jax
+
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        os.makedirs(REPO_CACHE_DIR, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", REPO_CACHE_DIR)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    return jax.config.jax_compilation_cache_dir

@@ -12,9 +12,9 @@ hits; a clump is a candidate iff hits > qlen - (err+1)*k (the q-gram
 pigeonhole bound, burst.c:4091-4095), which preserves the optimality
 guarantee. k = 15 matches the burst15 build; k = 12 matches burst12.
 
-TPU mapping note: scour is a host-side sparse gather (numpy); the
-device work stays in the batched DP kernels which receive only the
-candidate pairs.
+Device mapping note: this module's scour is a host-side sparse gather
+(numpy); kernels/scour_device.py re-expresses it on the device, and
+the batched DP kernels receive only the candidate pairs.
 """
 from __future__ import annotations
 

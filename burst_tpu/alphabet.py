@@ -3,7 +3,7 @@
 Semantics mirror the reference BURST implementation exactly
 (/root/reference/burst.c:164-192 score table, :1237-1329 setScore,
 :1206-1232 translation, :168 reverse-complement map), re-expressed as
-numpy arrays that feed the TPU kernels.
+numpy arrays that feed the device kernels.
 
 Code space (4-bit):
     0 '.' pad / invalid byte   (never matches anything; cost 255)

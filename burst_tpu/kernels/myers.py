@@ -1,12 +1,13 @@
 """Phase-A scan kernel: bit-parallel glocal edit distance (Myers/Hyyro).
 
-This is the TPU-native replacement for the reference's hot "aded" scanner
-(/root/reference/burst.c:1003-1204). The reference computes the DP with
-8-bit SIMD lanes over 16 references and adaptive banding; on TPU we instead
-use the Myers bit-vector algorithm in "infix" (HW) mode: each 32-bit VPU
-lane word encodes 32 DP rows, so one vector op advances 32*8*128 cells.
+This is the accelerator replacement for the reference's hot "aded"
+scanner (/root/reference/burst.c:1003-1204). The reference computes the
+DP with 8-bit SIMD lanes over 16 references and adaptive banding; here
+the Myers bit-vector algorithm runs in "infix" (HW) mode: each 32-bit
+word encodes 32 DP rows, so one integer op advances 32 cells per pair.
 The batch dimension is (query, reference-tile) pairs; the sequential scan
-runs over reference columns.
+runs over reference columns. These are the plain XLA versions;
+`myers_triton` is the GPU kernel for the pair scan.
 
 Semantics: unit-cost glocal edit distance -- query consumed end-to-end,
 reference start/end free -- identical to `refdp.edit_distance_glocal`
@@ -187,8 +188,8 @@ def myers_min_ed_cross(peq: jnp.ndarray, tiles: jnp.ndarray, W: int
     peq:   [Q, 16, W] uint32
     tiles: [T, Lp] uint8 (trailing pads as in myers_min_ed)
     Returns [Q, T] int32. This is the full-database scan path -- the
-    TPU-native analog of the reference's clump sweep (burst.c:4343-4484):
-    the VPU lane grid is (query x tile) and the scan walks tile columns.
+    analog of the reference's clump sweep (burst.c:4343-4484): the
+    batch grid is (query x tile) and the scan walks tile columns.
     """
     Q = peq.shape[0]
     T = tiles.shape[0]
@@ -253,39 +254,53 @@ def myers_min_ed_gather(peq_all: jnp.ndarray, tiles_all: jnp.ndarray,
     """Paired scan with device-side gathers.
 
     peq_all [NQ,16,W] and tiles_all [NT,Lp] live on the device across
-    chunk calls; each call ships only the [B] index vectors -- essential
-    when host<->device transfer is the bottleneck (tiles repeat heavily
-    across candidate pairs).
+    chunk calls; each call ships only the [B] index vectors (tiles
+    repeat heavily across candidate pairs).
     """
     peq = jnp.take(peq_all, pidx, axis=0)
     tiles = jnp.take(tiles_all, tidx, axis=0)
     return myers_min_ed(peq, tiles, W)
 
 
-def unpack_nibbles(packed: jnp.ndarray) -> jnp.ndarray:
-    """[n, Lh] 2-codes-per-byte rows -> [n, 2*Lh] codes (low nibble =
-    even column). The DB tile store keeps nibbles (the reference's own
-    clump layout, burst.c:2810-2824): half the HBM footprint and half
-    the host->device transfer; unpacking is a few vreg ops."""
-    lo = packed & jnp.uint8(0xF)
-    hi = packed >> jnp.uint8(4)
-    return jnp.stack([lo, hi], axis=2).reshape(packed.shape[0], -1)
+_NIBBLE_SHIFTS = np.arange(8, dtype=np.uint32) * 4
 
 
-def pack_nibbles_np(mat: np.ndarray) -> np.ndarray:
-    """Host-side inverse of unpack_nibbles (pads odd widths)."""
-    if mat.shape[1] % 2:
-        mat = np.concatenate(
-            [mat, np.zeros((mat.shape[0], 1), np.uint8)], axis=1)
-    return (mat[:, 0::2] | (mat[:, 1::2] << 4)).astype(np.uint8)
+def pack_words_np(mat: np.ndarray) -> np.ndarray:
+    """[n, L] codes -> [n, ceil(L/8)] u32 words, 8 nibble codes each
+    (column j = word j >> 3, bits 4*(j & 7); tail columns pad with 0).
+    The DB tile store keeps this layout (the reference's own nibble
+    clumps, burst.c:2810-2824): half the device memory and upload of
+    one byte per code, and one load feeds 8 scan columns."""
+    n, L = mat.shape
+    full = np.zeros((n, -(-L // 8) * 8), np.uint8)
+    full[:, :L] = mat
+    pairs = np.ascontiguousarray(full[:, 0::2] | (full[:, 1::2] << 4))
+    return pairs.view("<u4").astype(np.uint32, copy=False)
 
 
-@functools.partial(jax.jit, static_argnames=("W",))
-def myers_min_ed_gather_pos_packed(peq_all, tiles_packed, pidx, tidx,
-                                   W: int):
-    """myers_min_ed_gather_pos over a nibble-packed tile store."""
+def pack_words(codes: jnp.ndarray) -> jnp.ndarray:
+    """In-jit pack_words_np."""
+    n, L = codes.shape
+    Lw = -(-L // 8)
+    full = jnp.pad(codes.astype(jnp.uint32), ((0, 0), (0, Lw * 8 - L)))
+    return jnp.bitwise_or.reduce(
+        full.reshape(n, Lw, 8) << jnp.asarray(_NIBBLE_SHIFTS), axis=2)
+
+
+def unpack_words(words: jnp.ndarray, Lp: int) -> jnp.ndarray:
+    """[n, Lw] packed words -> [n, Lp] u8 codes (inverse of pack_words)."""
+    codes = (words[:, :, None] >> jnp.asarray(_NIBBLE_SHIFTS)) & \
+        jnp.uint32(0xF)
+    return codes.reshape(words.shape[0], -1)[:, :Lp].astype(jnp.uint8)
+
+
+@functools.partial(jax.jit, static_argnames=("W", "Lp"))
+def myers_min_ed_gather_pos_packed(peq_all, words, pidx, tidx, W: int,
+                                   Lp: int):
+    """myers_min_ed_gather_pos over the packed-word tile store (logical
+    width Lp)."""
     peq = jnp.take(peq_all, pidx, axis=0)
-    tiles = unpack_nibbles(jnp.take(tiles_packed, tidx, axis=0))
+    tiles = unpack_words(jnp.take(words, tidx, axis=0), Lp)
     return _pos_scan(peq, tiles, W)
 
 
@@ -294,8 +309,8 @@ def myers_min_ed_gather_pos(peq_all: jnp.ndarray, tiles_all: jnp.ndarray,
                             pidx: jnp.ndarray, tidx: jnp.ndarray, W: int):
     """Myers scan returning a packed [3, B] int32 array of (min ED,
     FIRST best column, LAST best column), columns 1-based in padded
-    coordinates. One output buffer = one device->host fetch (RPC round
-    trips dominate on tunneled rigs). For zero-ED winners `last` equals
+    coordinates. One output buffer = one device->host fetch. For
+    zero-ED winners `last` equals
     the rescore kernel's final_pos + the (32W - qlen) pad shift, letting
     phase B be skipped entirely; (first, last) bound the tie span for
     the windowed rescore."""

@@ -1,6 +1,6 @@
 """Device-side k-mer scour: the accelerator candidate scan as one jit.
 
-TPU-native re-expression of the reference's postScour walk
+Accelerator re-expression of the reference's postScour walk
 (/root/reference/burst.c:3238-3285) and candidate selection
 (/root/reference/burst.c:4091-4136) for the single-member-bunch case
 (QBUNCH=1, clear queries): instead of the host walking per-word postings
@@ -34,6 +34,11 @@ from .. import devtime
 
 VECSZ = 16
 DEAD = np.int32(2**31 - 1)   # sort sentinel (x64 is disabled in JAX)
+
+
+class ScourOverflow(RuntimeError):
+    """A chunk's compacted winner buffers overflowed (after the
+    capacity escalation): the caller re-scours on the host."""
 
 
 def _segmented_min(values, starts):
@@ -92,14 +97,10 @@ def _scour_core(qmat, lens, rank, nzw, start, cnt, ids, mm_member,
     # slot -> window mapping: te[j,e] = #{t : cum[j,t] <= e} (the
     # owning window), prev = the owning window's preceding cumsum,
     # ws/wv = its postings start and word value. A fori_loop over the
-    # T windows, NOT an unrolled Python loop: the unrolled form emits
-    # ~10 ops per window on [n, E] operands and XLA:TPU's compile time
-    # on that program is superlinear in T*E -- at the bench's E=3072 it
-    # ran for tens of minutes server-side, which is what actually ate
-    # the round-2/3 bench budgets. The loop-carried form compiles in
-    # seconds and the extra HBM round trips cost ~tens of ms per chunk.
-    # (A batched searchsorted would also work but lowers to serialized
-    # dynamic gathers, ~70ms per chunk.)
+    # T windows, not an unrolled Python loop: the unrolled form emits
+    # ~10 ops per window on [n, E] operands, and its compile time grows
+    # with T*E (E=3072 at the shotgun shape). A batched searchsorted is
+    # the other lowering; which is faster on the GPU is not measured.
 
     def _owner(t, carry):
         te, prev, ws, wv, c0 = carry
@@ -206,7 +207,7 @@ def _scour_reduce(u, te, wv, wg, live, ov, mm_member, mm_inner,
         orders a position key with the columns as sort payloads --
         winners keep their flat position, losers get M and sink to the
         tail; 'scatter' writes through a cumsum target index. Both are
-        exact; sort avoids XLA:TPU's serialized big-scatter lowering."""
+        exact; which is faster on the GPU is not measured."""
         import os
         flat = mask.ravel()
         M = flat.shape[0]
@@ -380,7 +381,7 @@ def scour_bunch_rows(wmat: np.ndarray, wgt: np.ndarray,
     def finish():
         try:
             return _chunk_finish_bunch(chunks, nB, tot_units, factor, C)
-        except RuntimeError:
+        except ScourOverflow:
             if factor >= 4:
                 raise
             tabs.cap_factor = 4
@@ -403,7 +404,7 @@ def _chunk_finish_bunch(chunks, n, tot_units, cap_factor: int, C: int):
         (ovc, ccount, cj, ccl, chits, cminw, ucount, uj, uu) = h
         nc, nu = int(ccount), int(ucount)
         if nc > capc or nu > capu:
-            raise RuntimeError("device scour buffer overflow")
+            raise ScourOverflow("device scour buffer overflow")
         ov[c0:c0 + nr] = ovc[:nr]
         parts["cj"].append(cj[:nc].astype(np.int64) + c0)
         parts["ccl"].append(ccl[:nc].astype(np.int64))
@@ -437,7 +438,7 @@ def _build_peq_dev(qmat, lens, smat_dev, W: int):
 
 def _unpack_codes(packed):
     """[n, L/2] two-codes-per-byte -> [n, L] 4-bit codes (upload is
-    half the bytes; the interleave is a few vreg ops)."""
+    half the bytes)."""
     import jax.numpy as jnp
     n, Lh = packed.shape
     lo = packed & jnp.uint8(0xF)
@@ -475,7 +476,7 @@ def _scour_align_jit(qmat_full, lens_full, mm_m_full, mm_i_full,
     their packed (ed, first, last) results. The chunk slices out of the
     whole-batch arrays on device (one upload, one compile per padded
     batch shape). tiles_packed holds ALL units (row == sorted
-    position) nibble-packed to logical width Lp -- trailing pad
+    position) as packed words of logical width Lp -- trailing pad
     columns never lower the glocal minimum, so per-pair min EDs equal
     the per-bucket scans'."""
     import jax
@@ -515,22 +516,21 @@ class ScourTables:
     def __init__(self, u_csr, span: int, dense: bool):
         import jax.numpy as jnp
         n_nz = len(u_csr.nzw)
-        from .. import devtime
         if dense:
             rank = np.zeros(span, dtype=np.int32)
             rank[u_csr.nzw] = np.arange(1, n_nz + 1, dtype=np.int32)
-            self.rank = devtime.put_chunked(rank)
+            self.rank = jnp.asarray(rank)
             self.nzw = None
         else:
             self.rank = jnp.zeros(1, jnp.int32)   # unused placeholder
-            self.nzw = devtime.put_chunked(u_csr.nzw.astype(np.int32))
+            self.nzw = jnp.asarray(u_csr.nzw.astype(np.int32))
         start = np.zeros(n_nz + 1, dtype=np.int32)
         start[1:] = u_csr.start.astype(np.int32)
         cnt = np.zeros(n_nz + 1, dtype=np.int32)
         cnt[1:] = u_csr.cnt.astype(np.int32)
-        self.start = devtime.put_chunked(start)
-        self.cnt = devtime.put_chunked(cnt)
-        self.ids = devtime.put_chunked(u_csr.ids.astype(np.int32))
+        self.start = jnp.asarray(start)
+        self.cnt = jnp.asarray(cnt)
+        self.ids = jnp.asarray(u_csr.ids.astype(np.int32))
 
 
 _TABLES_LOCK = __import__("threading").Lock()
@@ -617,7 +617,7 @@ def _chunk_dispatch(qmat, lens, k, mm_member, mm_inner, tabs,
 def _chunk_finish(chunks, n, tot_units, aligned: bool,
                   cap_factor: int = 2):
     """One device_get over every chunk, merged to global row indices.
-    Raises RuntimeError when any chunk's winner buffers overflowed."""
+    Raises ScourOverflow when any chunk's winner buffers overflowed."""
     import jax
 
     capc = capu = cap_factor * CHUNK_ROWS
@@ -635,7 +635,7 @@ def _chunk_finish(chunks, n, tot_units, aligned: bool,
             packed = None
         nc, nu = int(ccount), int(ucount)
         if nc > capc or nu > capu:
-            raise RuntimeError("device scour buffer overflow")
+            raise ScourOverflow("device scour buffer overflow")
         ov[c0:c0 + nr] = ovc[:nr]
         parts["cj"].append(cj[:nc].astype(np.int64) + c0)
         parts["ccl"].append(ccl[:nc].astype(np.int64))
@@ -675,8 +675,8 @@ def scour_rows(qmat: np.ndarray, lens: np.ndarray, k: int,
     Returns a `finish()` closure (defer=True) or its result: a dict with
     `ov` [n] bool overflow flags, `cj`/`ccl`/`chits`/`cminw` candidate
     tuples (hits > mm_member, unordered), and `ukeys` passing unit keys
-    (ascending); per-chunk winner buffers overflowing raise RuntimeError
-    (caller falls back to the host scour).
+    (ascending); per-chunk winner buffers overflowing raise
+    ScourOverflow (caller falls back to the host scour).
     """
     import os
 
@@ -692,7 +692,7 @@ def scour_rows(qmat: np.ndarray, lens: np.ndarray, k: int,
         try:
             return _chunk_finish(chunks, n, tot_units, aligned=False,
                                  cap_factor=factor)
-        except RuntimeError:
+        except ScourOverflow:
             if factor >= 4:
                 raise
             # sticky escalation: this DB/workload needs bigger winner
@@ -733,7 +733,7 @@ def scour_align_rows(qmat: np.ndarray, lens: np.ndarray, k: int,
         try:
             return _chunk_finish(chunks, n, tot_units, aligned=True,
                                  cap_factor=factor)
-        except RuntimeError:
+        except ScourOverflow:
             if factor >= 4:
                 raise
             tabs.cap_factor = 4

@@ -5,10 +5,16 @@ reference binary's -Ofast reciprocal sequence (see fastdiv.c). Falls
 back to IEEE float32 division when no compiler is available, which can
 differ by 1 ulp on rare inputs.
 
-burst_host.so (C++/OpenMP): the host-runtime kernels -- k-mer scour +
+burst_host (C++/OpenMP): the host-runtime kernels -- k-mer scour +
 candidate selection, unit-level pigeonhole prefilter, blast6 row
 formatting. engine/modes call these when available and fall back to
-the vectorized numpy implementations otherwise.
+the vectorized numpy implementations otherwise; the fused device path
+requires it (engine.accel_scan_fused raises on a failed build).
+
+Both libraries build from the committed sources into build/, under a
+name keyed on a hash of the source, the compiler command and the host
+CPU's identity (model and flags): a library built for another CPU, or
+from other sources, is never loaded.
 """
 from __future__ import annotations
 
@@ -22,6 +28,11 @@ _LIB = None
 _TRIED = False
 _HOST = None
 _HOST_TRIED = False
+_HOST_PATH = None
+_HOST_ERR = None
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(_HERE, "build")
 
 # dense scour-table value-encoding version (see _csr_args): bump when
 # Postings::decode in burst_host.cpp changes
@@ -33,127 +44,182 @@ _I32P = ctypes.POINTER(ctypes.c_int32)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _F32P = ctypes.POINTER(ctypes.c_float)
 
+_FASTDIV_CMDS = (["cc", "-O2", "-msse", "-shared", "-fPIC"],)
+_HOST_CMDS = (
+    ["g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC"],
+    ["g++", "-O2", "-fopenmp", "-shared", "-fPIC"],
+)
+
+
+def cpu_identity() -> str:
+    """The host CPU's model name and feature flags (Linux /proc/cpuinfo;
+    the platform's processor string elsewhere)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            lines = f.read().split("\n\n")[0].splitlines()
+    except OSError:
+        import platform
+        return platform.machine() + " " + platform.processor()
+    keep = [ln for ln in lines
+            if ln.split(":")[0].strip() in ("vendor_id", "model name",
+                                            "flags", "Features",
+                                            "CPU part")]
+    return "\n".join(keep)
+
+
+def library_key(src_bytes: bytes, cmd: list, cpu: str) -> str:
+    """Hex key naming a build of `src_bytes` by `cmd` for CPU `cpu`."""
+    import hashlib
+    h = hashlib.sha256()
+    for part in (src_bytes, " ".join(cmd).encode(), cpu.encode()):
+        h.update(len(part).to_bytes(8, "little"))
+        h.update(part)
+    return h.hexdigest()[:16]
+
+
+def _build(stem: str, src: str, cmds) -> tuple[str | None, str | None]:
+    """(path, None) of a library built from `src` by the first command
+    that succeeds (reusing a matching earlier build), or (None, the
+    compilers' error output)."""
+    import tempfile
+
+    with open(src, "rb") as f:
+        src_bytes = f.read()
+    cpu = cpu_identity()
+    errors = []
+    for cmd in cmds:
+        path = os.path.join(
+            BUILD_DIR, f"{stem}-{library_key(src_bytes, cmd, cpu)}.so")
+        if os.path.exists(path):
+            return path, None
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            subprocess.run(cmd + ["-o", tmp, src], check=True,
+                           capture_output=True, text=True)
+            os.replace(tmp, path)   # atomic: concurrent builders agree
+            return path, None
+        except (OSError, subprocess.CalledProcessError) as e:
+            errors.append(f"$ {' '.join(cmd)} ...\n"
+                          + (getattr(e, "stderr", None) or str(e)))
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return None, "\n".join(errors)
+
 
 def _load():
     global _LIB, _TRIED
     if _TRIED:
         return _LIB
     _TRIED = True
-    here = os.path.dirname(__file__)
-    src = os.path.join(here, "fastdiv.c")
-    so = os.path.join(here, "fastdiv.so")
-    try:
-        if not os.path.exists(so) or \
-                os.path.getmtime(so) < os.path.getmtime(src):
-            subprocess.run(
-                ["cc", "-O2", "-msse", "-shared", "-fPIC", "-o", so, src],
-                check=True, capture_output=True)
+    so, _ = _build("fastdiv", os.path.join(_HERE, "fastdiv.c"),
+                   _FASTDIV_CMDS)
+    if so is not None:
         lib = ctypes.CDLL(so)
         lib.score_rcp_nr.argtypes = [
             ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
             ctypes.POINTER(ctypes.c_float), ctypes.c_long]
         _LIB = lib
-    except Exception:
-        _LIB = None
     return _LIB
 
 
+def host_library_path() -> str | None:
+    """Path of the loaded burst_host library (None if not loaded)."""
+    return _HOST_PATH
+
+
+def host_build_error() -> str | None:
+    """The compilers' output when burst_host failed to build."""
+    return _HOST_ERR
+
+
 def load_host():
-    """Build (if stale) and load burst_host.so; None if unavailable."""
-    global _HOST, _HOST_TRIED
+    """Build (if needed) and load burst_host; None if disabled
+    (BURST_TPU_NO_NATIVE) or if the build failed (host_build_error)."""
+    global _HOST, _HOST_TRIED, _HOST_PATH, _HOST_ERR
     if _HOST_TRIED:
         return _HOST
     _HOST_TRIED = True
     if os.environ.get("BURST_TPU_NO_NATIVE"):
         _HOST = None
         return None
-    here = os.path.dirname(__file__)
-    src = os.path.join(here, "burst_host.cpp")
-    so = os.path.join(here, "burst_host.so")
-    try:
-        if not os.path.exists(so) or \
-                os.path.getmtime(so) < os.path.getmtime(src):
-            try:
-                subprocess.run(
-                    ["g++", "-O3", "-march=native", "-fopenmp",
-                     "-shared", "-fPIC", "-o", so, src],
-                    check=True, capture_output=True)
-            except subprocess.CalledProcessError:
-                subprocess.run(
-                    ["g++", "-O2", "-fopenmp", "-shared", "-fPIC",
-                     "-o", so, src],
-                    check=True, capture_output=True)
-        lib = ctypes.CDLL(so)
-        lib.hash_build.argtypes = [
-            _I64P, _I64P, _U32P, ctypes.c_long,
-            _I64P, _U32P, ctypes.c_long]
-        lib.scour_run.restype = ctypes.c_long
-        lib.scour_run.argtypes = [
-            _U8P, ctypes.c_long, _I64P,
-            ctypes.c_long, ctypes.c_long, ctypes.c_long, ctypes.c_int,
-            _I64P, _I64P, _I64P,
-            _U32P, ctypes.c_long, _I64P, ctypes.c_long,
-            _I64P, _U32P, _I64P, _U32P, ctypes.c_long,
-            ctypes.c_long, _I64P, _I64P,
-            _U32P, ctypes.c_long, _I64P, ctypes.c_long,
-            _I64P, _U32P, _I64P, _U32P, ctypes.c_long,
-            ctypes.c_long, ctypes.c_long, ctypes.c_long]
-        lib.scour_sizes.argtypes = [_I64P]
-        lib.scour_fetch.argtypes = [_I64P, _I64P, _I64P, _I64P, _I64P,
-                                    _I64P]
-        lib.unit_prefilter_run.restype = ctypes.c_long
-        lib.unit_prefilter_run.argtypes = [
-            _U8P, ctypes.c_long, _I64P,
-            ctypes.c_long, ctypes.c_long, ctypes.c_int,
-            _U32P, ctypes.c_long, _I64P, ctypes.c_long,
-            _I64P, _U32P, _I64P, _U32P, ctypes.c_long,
-            ctypes.c_long, _I64P, ctypes.c_long]
-        lib.unit_prefilter_fetch.argtypes = [_I64P]
-        lib.dupe_filter.argtypes = [
-            _I64P, ctypes.c_long, _I64P, _U32P, _I64P, _U8P]
-        lib.expand_pairs_count.restype = ctypes.c_long
-        lib.expand_pairs_count.argtypes = [
-            _I64P, _I64P, ctypes.c_long, ctypes.c_long, ctypes.c_long,
-            _U8P, _U8P, _I64P, ctypes.c_long]
-        lib.expand_pairs_fill.restype = ctypes.c_long
-        lib.expand_pairs_fill.argtypes = [
-            _I64P, _I64P, ctypes.c_long, ctypes.c_long, ctypes.c_long,
-            _U8P, _U8P, _I64P, ctypes.c_long, _I64P, _I64P]
-        lib.capitalist_select.argtypes = [
-            _I64P, ctypes.c_long, _I64P, _I64P, _I64P, _I64P]
-        lib.build_peq16.argtypes = [
-            _U8P, ctypes.c_long, _I64P, ctypes.c_long, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_uint16), _U32P]
-        lib.b6_format.restype = ctypes.c_long
-        lib.b6_format.argtypes = [
-            ctypes.c_char_p, _I64P, _I64P,
-            ctypes.c_char_p, _I64P, _I64P,
-            _F32P, _U32P, _U32P, _U32P, _U32P,
-            _I32P, _U32P, _U32P, _I64P,
-            ctypes.c_char_p, _I64P, _I64P,
-            ctypes.c_long, ctypes.c_char_p, ctypes.c_long]
-        lib.accel_count.restype = ctypes.c_int64
-        lib.accel_count.argtypes = [
-            _U8P, _I64P, _I64P, _I64P, _I64P,
-            ctypes.c_long, ctypes.c_int, _U32P]
-        lib.accel_fill.argtypes = [
-            _U8P, _I64P, _I64P, _I64P, _I64P,
-            ctypes.c_long, ctypes.c_int, _I64P, _U32P]
-        lib.pad_rows.argtypes = [
-            _U8P, _I64P, ctypes.c_long, ctypes.c_long, _U8P]
-        lib.myers_pairs.argtypes = [
-            _U32P, _U8P, _I32P, _I32P,
-            ctypes.c_long, ctypes.c_long, ctypes.c_long, ctypes.c_long,
-            _I32P, ctypes.c_long]
-        lib.rescore_pairs.argtypes = [
-            _U32P, _U8P, _I32P, _I32P, _I32P, _I32P, _I32P,
-            ctypes.c_long, ctypes.c_long, ctypes.c_long, ctypes.c_long,
-            ctypes.c_long, ctypes.c_long, _I32P]
-        lib.em_swap_pairs.argtypes = [
-            _U8P, _I64P, ctypes.c_long, _I64P, _I64P, ctypes.c_long]
-        _HOST = lib
-    except Exception:
-        _HOST = None
+    so, _HOST_ERR = _build("burst_host",
+                           os.path.join(_HERE, "burst_host.cpp"),
+                           _HOST_CMDS)
+    if so is None:
+        return None
+    lib = ctypes.CDLL(so)
+    _HOST_PATH = so
+    lib.hash_build.argtypes = [
+        _I64P, _I64P, _U32P, ctypes.c_long,
+        _I64P, _U32P, ctypes.c_long]
+    lib.scour_run.restype = ctypes.c_long
+    lib.scour_run.argtypes = [
+        _U8P, ctypes.c_long, _I64P,
+        ctypes.c_long, ctypes.c_long, ctypes.c_long, ctypes.c_int,
+        _I64P, _I64P, _I64P,
+        _U32P, ctypes.c_long, _I64P, ctypes.c_long,
+        _I64P, _U32P, _I64P, _U32P, ctypes.c_long,
+        ctypes.c_long, _I64P, _I64P,
+        _U32P, ctypes.c_long, _I64P, ctypes.c_long,
+        _I64P, _U32P, _I64P, _U32P, ctypes.c_long,
+        ctypes.c_long, ctypes.c_long, ctypes.c_long]
+    lib.scour_sizes.argtypes = [_I64P]
+    lib.scour_fetch.argtypes = [_I64P, _I64P, _I64P, _I64P, _I64P,
+                                _I64P]
+    lib.unit_prefilter_run.restype = ctypes.c_long
+    lib.unit_prefilter_run.argtypes = [
+        _U8P, ctypes.c_long, _I64P,
+        ctypes.c_long, ctypes.c_long, ctypes.c_int,
+        _U32P, ctypes.c_long, _I64P, ctypes.c_long,
+        _I64P, _U32P, _I64P, _U32P, ctypes.c_long,
+        ctypes.c_long, _I64P, ctypes.c_long]
+    lib.unit_prefilter_fetch.argtypes = [_I64P]
+    lib.dupe_filter.argtypes = [
+        _I64P, ctypes.c_long, _I64P, _U32P, _I64P, _U8P]
+    lib.expand_pairs_count.restype = ctypes.c_long
+    lib.expand_pairs_count.argtypes = [
+        _I64P, _I64P, ctypes.c_long, ctypes.c_long, ctypes.c_long,
+        _U8P, _U8P, _I64P, ctypes.c_long]
+    lib.expand_pairs_fill.restype = ctypes.c_long
+    lib.expand_pairs_fill.argtypes = [
+        _I64P, _I64P, ctypes.c_long, ctypes.c_long, ctypes.c_long,
+        _U8P, _U8P, _I64P, ctypes.c_long, _I64P, _I64P]
+    lib.capitalist_select.argtypes = [
+        _I64P, ctypes.c_long, _I64P, _I64P, _I64P, _I64P]
+    lib.build_peq16.argtypes = [
+        _U8P, ctypes.c_long, _I64P, ctypes.c_long, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint16), _U32P]
+    lib.b6_format.restype = ctypes.c_long
+    lib.b6_format.argtypes = [
+        ctypes.c_char_p, _I64P, _I64P,
+        ctypes.c_char_p, _I64P, _I64P,
+        _F32P, _U32P, _U32P, _U32P, _U32P,
+        _I32P, _U32P, _U32P, _I64P,
+        ctypes.c_char_p, _I64P, _I64P,
+        ctypes.c_long, ctypes.c_char_p, ctypes.c_long]
+    lib.accel_count.restype = ctypes.c_int64
+    lib.accel_count.argtypes = [
+        _U8P, _I64P, _I64P, _I64P, _I64P,
+        ctypes.c_long, ctypes.c_int, _U32P]
+    lib.accel_fill.argtypes = [
+        _U8P, _I64P, _I64P, _I64P, _I64P,
+        ctypes.c_long, ctypes.c_int, _I64P, _U32P]
+    lib.pad_rows.argtypes = [
+        _U8P, _I64P, ctypes.c_long, ctypes.c_long, _U8P]
+    lib.myers_pairs.argtypes = [
+        _U32P, _U8P, _I32P, _I32P,
+        ctypes.c_long, ctypes.c_long, ctypes.c_long, ctypes.c_long,
+        _I32P, ctypes.c_long]
+    lib.rescore_pairs.argtypes = [
+        _U32P, _U8P, _I32P, _I32P, _I32P, _I32P, _I32P,
+        ctypes.c_long, ctypes.c_long, ctypes.c_long, ctypes.c_long,
+        ctypes.c_long, ctypes.c_long, _I32P]
+    lib.em_swap_pairs.argtypes = [
+        _U8P, _I64P, ctypes.c_long, _I64P, _I64P, ctypes.c_long]
+    _HOST = lib
     return _HOST
 
 

@@ -61,13 +61,15 @@ def _sharded_scan(peq, tiles, W: int, mesh: Mesh):
     return fn(peq, tiles)
 
 
-def _sharded_tiles(rd, n_shards: int, pad: int, weights=None):
+def _sharded_tiles(rd, n_shards: int, pad: int, weights=None,
+                   q_shards: int = 1):
     """Tile rows in sorted-unit order, partitioned into n_shards
     CONTIGUOUS slabs balanced by `weights` (candidate mass per sorted
     unit; None = equal unit counts), each slab padded to the tallest.
     Shard s owns sorted positions [starts[s], starts[s+1]) at local
     rows 0..; returns (tiles_dev [S*rows_max, Lmax+pad], starts [S+1],
-    rows_max, Lmax+pad). Cached per (S, pad): the first batch's
+    rows_max, Lmax+pad), tiles_dev placed slab s on the 'db' index s
+    of the (q x db) mesh. Cached per (S, pad, q): the first batch's
     weights fix the partition, later batches reuse the resident tiles.
 
     The reference's analog is OpenMP *dynamic* scheduling over clumps
@@ -80,7 +82,7 @@ def _sharded_tiles(rd, n_shards: int, pad: int, weights=None):
     cache = getattr(rd, "_shardtiles", None)
     if cache is None:
         cache = rd._shardtiles = {}
-    got = cache.get((n_shards, pad))
+    got = cache.get((n_shards, pad, q_shards))
     if got is None:
         tot = rd.tot_units
         lmax = int(max((len(rd.seqs[rd.ix_srt[p]])
@@ -106,8 +108,10 @@ def _sharded_tiles(rd, n_shards: int, pad: int, weights=None):
             pos = np.arange(starts[s], starts[s + 1], dtype=np.int64)
             _eng._fill_rows(mat[s * rows_max: s * rows_max + len(pos)],
                             rd, pos)
-        got = cache[(n_shards, pad)] = (jnp.asarray(mat), starts,
-                                        rows_max, lmax + pad)
+        tiles_dev = jax.device_put(mat, NamedSharding(
+            make_mesh2(n_shards, q_shards), P("db", None)))
+        got = cache[(n_shards, pad, q_shards)] = (tiles_dev, starts,
+                                                  rows_max, lmax + pad)
     return got
 
 
@@ -267,7 +271,7 @@ def compute_ed_matrix_accel_sharded(qd, rd, visits, smat,
     (host-side pair->shard routing), scan_s (blocked on the sharded
     device scan), merge_s (host-side result merge), pairs_per_shard
     (load balance across the flat q*db shard grid) -- the inputs to a
-    scaling-efficiency report (see tools/scaling_probe.py).
+    scaling-efficiency report.
     """
     import time as _time
 
@@ -304,7 +308,8 @@ def compute_ed_matrix_accel_sharded(qd, rd, visits, smat,
         peq, rq = _pad_peq_interleave_q(peq, q_shards)
         tiles_dev, starts, _, lp = _sharded_tiles(
             rd, n_shards, 32,
-            weights=np.bincount(pp, minlength=rd.tot_units))
+            weights=np.bincount(pp, minlength=rd.tot_units),
+            q_shards=q_shards)
         qrow = row2local[pj[sel]]
         qs = qrow % q_shards
         ds = np.searchsorted(starts, pp[sel], side="right") - 1
@@ -349,7 +354,7 @@ def rescore_winners_sharded(qd, rd, juni, refpos, eds, mode, smat,
     engine.rescore_winners. With `win_cols` (the phase-A first/last
     best columns, SparseED.lookup_cols) each pair that fits runs on its
     [Lw-1]-column window exactly like the plain path -- without it the
-    full-slab-width DP costs ~30x (round-5 probe). `stats` accumulates
+    full-slab-width DP costs many times more. `stats` accumulates
     route_s/scan_s/merge_s/pairs_per_shard as in
     compute_ed_matrix_accel_sharded.
     """
@@ -405,7 +410,8 @@ def rescore_winners_sharded(qd, rd, juni, refpos, eds, mode, smat,
         m_pad = int(W) * 32
         tiles_dev, starts, _, lp = _sharded_tiles(
             rd, n_shards, m_pad,
-            weights=np.bincount(refpos, minlength=rd.tot_units))
+            weights=np.bincount(refpos, minlength=rd.tot_units),
+            q_shards=q_shards)
         peq_d = jnp.asarray(peq)
         bmax = int(bound[wsel].max()) if len(wsel) else 0
         qmax = int(qlens_all[juni[wsel]].max()) if len(wsel) else 2

@@ -26,8 +26,9 @@ Launch recipe (N processes, one per host; process 0 writes the b6):
     BURST_TPU_MULTIHOST="<pid>/<nprocs>@<coordinator_host:port>" \
         python -m burst_tpu.cli -q q.fa -r db.edx -a db.acx -o out.b6 ...
 
-On a TPU pod each process also owns its local chips (jax.distributed
-wires ICI+DCN); for CPU validation set JAX_PLATFORMS=cpu and
+On a GPU cluster each process also owns its local cards
+(jax.distributed wires the collectives); for CPU validation set
+JAX_PLATFORMS=cpu and
 XLA_FLAGS=--xla_force_host_platform_device_count=<n>. See
 tools/launch_multihost.py for a single-machine spawner.
 """
@@ -88,10 +89,6 @@ def align_multihost(a) -> int:
     """The cli.run align branch, DB-sharded across processes."""
     pid, nprocs, coord = parse_spec(os.environ["BURST_TPU_MULTIHOST"])
     import jax
-    if os.environ.get("JAX_PLATFORMS"):
-        # sitecustomize-style plugins may pre-register an experimental
-        # platform before the env var is honored; pin it explicitly
-        jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
     jax.distributed.initialize(coordinator_address=coord,
                                num_processes=nprocs, process_id=pid)
 

@@ -16,7 +16,7 @@ import io
 
 import numpy as np
 
-from . import devtime, engine, modes
+from . import enable_compile_cache, engine, modes
 from .alphabet import score_matrix
 from .io.taxonomy import Taxonomy
 from .process import RefData, bin_queries_for_accel, process_queries
@@ -28,8 +28,7 @@ class Aligner:
                  taxonomy: Taxonomy | None = None, z: int = 1,
                  taxacut: int = 10, taxasuppress: bool = False,
                  strict: bool = False):
-        from .cli import _enable_compile_cache
-        _enable_compile_cache()
+        enable_compile_cache()
         self.rd = rd
         self.acc = acc
         self.thres = thres
@@ -119,21 +118,7 @@ class Aligner:
         pre-translated 4-bit code arrays (values < 16). `dev_scour`
         overrides the device-scour policy for this batch (see
         align_stream's alternate mode).
-
-        Survives a device-tunnel stall: chunk-level fetches fall back
-        to the host kernels in place (engine pending closures); a stall
-        inside the fused scour+align dispatch chain raises DeviceStall,
-        after which the backend is marked dead and the batch reruns on
-        the all-host path -- byte-identical either way.
         """
-        try:
-            return self._align_batch(headers, seqs, dev_scour)
-        except devtime.DeviceStall:
-            return self._align_batch(headers, seqs, dev_scour)
-
-    def _align_batch(self, headers: list[bytes],
-                     seqs: list[np.ndarray],
-                     dev_scour: bool | None = None) -> bytes:
         qd = process_queries(headers, seqs, self.thres, self.do_rc)
         mode = self.mode
         buf = io.StringIO()

@@ -3,7 +3,7 @@
 
 Spawns N burst_tpu CLI processes wired together with jax.distributed
 (Gloo over localhost), each owning a clump shard of the database --
-the same code path a real multi-host TPU pod runs, minus the ICI.
+the same code path a real multi-host deployment runs.
 
     python tools/launch_multihost.py -n 2 [--port N] -- \
         -q q.fa -r db.edx -a db.acx -o out.b6 -m BEST
